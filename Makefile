@@ -9,7 +9,7 @@ test-fast:       ## core solver + estimator tests only
 native:          ## build the C++ OpenMP CPU solver
 	python setup.py build_native
 
-bench:           ## one-chip TPU benchmark (single JSON line)
+bench:           ## one-GPU benchmark (one JSON line per cell)
 	python bench.py
 
 benchsuite:      ## BASELINE.json config suite
@@ -20,5 +20,5 @@ examples:        ## run both example applications (synthetic data)
 	python examples/bitcoin_prediction.py --synthetic --limit 150
 
 clean:
-	rm -rf sigkernel_tpu/csrc/libsigsolver.so .pytest_cache
+	rm -rf sigkernel_jax/csrc/libsigsolver.so .pytest_cache
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -21,7 +21,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax.numpy as jnp  # noqa: E402
-import sigkernel_tpu as sk  # noqa: E402
+import sigkernel_jax as sk  # noqa: E402
 
 WINDOW = 36
 HORIZON = 2

@@ -1,9 +1,9 @@
 """UEA multivariate time-series classification with the signature-PDE kernel.
 
-TPU-native counterpart of the reference example
+JAX counterpart of the reference example
 (reference examples/time_series_classification.py): paths are preprocessed
 with the transform pipeline (scale / lead-lag / add-time), the signature
-Gram matrix is computed on TPU, and an SVC with a precomputed kernel is
+Gram matrix is computed on the accelerator, and an SVC with a precomputed kernel is
 grid-searched on host.
 
 Usage:
@@ -26,8 +26,8 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax.numpy as jnp  # noqa: E402
-import sigkernel_tpu as sk  # noqa: E402
-from sigkernel_tpu.models import SigKernelSVC  # noqa: E402
+import sigkernel_jax as sk  # noqa: E402
+from sigkernel_jax.models import SigKernelSVC  # noqa: E402
 
 DATASETS = [
     "ArticularyWordRecognition", "BasicMotions", "Cricket", "ERing",
@@ -40,7 +40,7 @@ MAX_LENGTH = 149  # subsample cap, as in the reference (:97-98)
 
 def load_uea(name, data_dir=None):
     if data_dir:  # local archive: the library's zero-dep .ts parser
-        from sigkernel_tpu.datasets import load_uea_dataset
+        from sigkernel_jax.datasets import load_uea_dataset
         return load_uea_dataset(name, data_dir)
     from tslearn.datasets import UCR_UEA_datasets
     x_train, y_train, x_test, y_test = UCR_UEA_datasets().load_dataset(name)

@@ -1,6 +1,6 @@
 """Build script: pure-python package + optional native CPU backend.
 
-The C++ OpenMP wavefront solver (sigkernel_tpu/csrc/solver.cpp) is compiled
+The C++ OpenMP wavefront solver (sigkernel_jax/csrc/solver.cpp) is compiled
 as a plain shared library loaded via ctypes -- build it with
 ``python setup.py build_native`` or the Makefile target; the package works
 without it (the JAX scan solver covers CPU).
@@ -23,8 +23,8 @@ class BuildNative(Command):
         pass
 
     def run(self):
-        src = os.path.join("sigkernel_tpu", "csrc", "solver.cpp")
-        out = os.path.join("sigkernel_tpu", "csrc", "libsigsolver.so")
+        src = os.path.join("sigkernel_jax", "csrc", "solver.cpp")
+        out = os.path.join("sigkernel_jax", "csrc", "libsigsolver.so")
         cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
                "-std=c++17", src, "-o", out]
         print(" ".join(cmd))

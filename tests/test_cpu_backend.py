@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sigkernel_tpu.ops import cpu_backend, scan_solver
-from sigkernel_tpu.naive import _solve_np
+from sigkernel_jax.ops import cpu_backend, scan_solver
+from sigkernel_jax.naive import _solve_np
 
 pytestmark = pytest.mark.skipif(
     not cpu_backend.available(),

@@ -1,7 +1,7 @@
 """Zero-dep UEA .ts parser."""
 import numpy as np
 
-from sigkernel_tpu.datasets import load_ts_file, load_uea_dataset
+from sigkernel_jax.datasets import load_ts_file, load_uea_dataset
 
 TS = """#comment line
 @problemName Toy

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import sigkernel_tpu as sk
-from sigkernel_tpu.ops import df32, df_prep
-from sigkernel_tpu.utils import double_difference
+import sigkernel_jax as sk
+from sigkernel_jax.ops import df32, df_prep
+from sigkernel_jax.utils import double_difference
 
 from conftest import make_paths
 
@@ -156,7 +156,7 @@ def test_rbf_dd_vjp_matches_autodiff(rng, gram, dt):
     """The hand-fused increment-chain VJP == jax.vjp of the naive
     composition, at the compute dtype's own grade, for both pair layouts
     and a non-trivial sigma (incl. the sigma cotangent)."""
-    from sigkernel_tpu.utils import dd_transpose
+    from sigkernel_jax.utils import dd_transpose
 
     B, M, N, d = 3, 8, 9, 2
     X = jnp.asarray(rng.normal(size=(B, M, d)), dt)

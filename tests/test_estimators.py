@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import sigkernel_tpu as sk
-from sigkernel_tpu import naive
+import sigkernel_jax as sk
+from sigkernel_jax import naive
 
 from conftest import make_paths
 

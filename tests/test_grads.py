@@ -14,9 +14,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sigkernel_tpu.ops.solve import solve
-from sigkernel_tpu.naive import _solve_np
-from sigkernel_tpu import RBFKernel, LinearKernel, sig_kernel, sig_mmd
+from sigkernel_jax.ops.solve import solve
+from sigkernel_jax.naive import _solve_np
+from sigkernel_jax import RBFKernel, LinearKernel, sig_kernel, sig_mmd
 
 from conftest import make_paths
 
@@ -86,66 +86,38 @@ def test_grad_vs_finite_differences_converges(rng):
 
 
 # ---------------------------------------------------------------------------
-# FD checks on the PRODUCTION routes (gen / df / df_hybrid / fused), forced
-# on CPU via the family gates + Pallas interpret mode. Ground truth is
-# central finite differences of each route's own forward (the forwards are
-# df64-grade or better, so FD noise is well below the tolerance); agreement
-# with the adjoint improves with dyadic refinement.
+# FD checks on the PRODUCTION routes: the double-float families (solver="df"
+# with the f32-grade and the f64-grade backward), and, on a GPU, the CUDA
+# wavefront tier. Ground truth is central finite differences of each route's
+# own forward; agreement with the adjoint improves with dyadic refinement.
 # ---------------------------------------------------------------------------
 
-import os as _os
-
-_ON_TPU = bool(_os.environ.get("SIGKERNEL_TEST_TPU"))
-
-
-def _interpret():
-    from jax.experimental.pallas import tpu as pltpu
-    import contextlib
-
-    return (contextlib.nullcontext() if _ON_TPU
-            else pltpu.force_tpu_interpret_mode())
-
-
-def _force_family(monkeypatch, family):
-    """Steer resolve_family to ``family`` regardless of platform."""
-    import sigkernel_tpu.sigkernel as K
-    from sigkernel_tpu.ops import solve as solve_mod
-
-    monkeypatch.setattr(K, "_fused_auto", lambda *a: family == "fused")
-    monkeypatch.setattr(K, "_df_route",
-                        lambda *a: family in ("gen", "df", "df_hybrid"))
-    monkeypatch.setattr(K, "_gen_route",
-                        lambda *a, **kw: family == "gen")
-    if family == "df":
-        # keep the df Pallas kernels (not the scan fallback) under test
-        monkeypatch.setattr(solve_mod, "_df_supported", lambda *a: True)
+def _fd_convergence(X64, Y, dtype, d_orders, **kw):
+    k = RBFKernel(1.0)
+    errs = []
+    for d in d_orders:
+        f = jax.jit(lambda x: sig_kernel(
+            k, x.astype(dtype), Y, dyadic_order=d, max_batch=None,
+            **kw).sum())
+        g_ad = np.asarray(jax.grad(f)(jnp.asarray(X64)), np.float64)
+        eps = 3e-4 if dtype == jnp.float32 else 1e-6
+        g_fd = _fd_grad(lambda x: float(f(jnp.asarray(x))), X64, eps=eps)
+        errs.append(np.abs(g_ad - g_fd).max() / np.abs(g_fd).max())
+    return errs
 
 
 @pytest.mark.parametrize("family,grad_solver,tol", [
-    ("gen", "f32", 8e-2),
     ("df", "f32", 8e-2),
     ("df_hybrid", "auto", 8e-2),
-    ("fused", "auto", 8e-2),
 ])
-def test_fd_grad_production_routes(rng, monkeypatch, family, grad_solver,
-                                   tol):
-    X64 = make_paths(rng, 1, 4, 2, scale=0.5)
-    Y64 = make_paths(rng, 1, 5, 2, scale=0.5)
-    dtype = jnp.float32 if family == "fused" else jnp.float64
-    Y = jnp.asarray(Y64, dtype)
-    k = RBFKernel(1.0)
-    _force_family(monkeypatch, family)
+def test_fd_grad_production_routes(rng, family, grad_solver, tol):
+    from sigkernel_jax.ops.routes import resolve_family
 
-    errs = []
-    for d in (1, 2):
-        with _interpret():
-            f = jax.jit(lambda x: sig_kernel(
-                k, x.astype(dtype), Y, dyadic_order=d,
-                grad_solver=grad_solver, max_batch=None).sum())
-            g_ad = np.asarray(jax.grad(f)(jnp.asarray(X64)), np.float64)
-            eps = 3e-4 if dtype == jnp.float32 else 1e-6
-            g_fd = _fd_grad(lambda x: float(f(jnp.asarray(x))), X64, eps=eps)
-        errs.append(np.abs(g_ad - g_fd).max() / np.abs(g_fd).max())
+    assert resolve_family("df", grad_solver) == family
+    X64 = make_paths(rng, 1, 4, 2, scale=0.5)
+    Y = jnp.asarray(make_paths(rng, 1, 5, 2, scale=0.5))
+    errs = _fd_convergence(X64, Y, jnp.float64, (1, 2), solver="df",
+                           grad_solver=grad_solver)
 
     # the adjoint is the continuous gradient: at these very coarse grids
     # the FD gap is discretisation-dominated (~5e-2), so the check is
@@ -153,6 +125,18 @@ def test_fd_grad_production_routes(rng, monkeypatch, family, grad_solver,
     # scaling, indexing) produce O(1) errors, which this catches; tight
     # route equivalence lives in tests/test_routes.py
     assert errs[1] < tol, errs
+    assert errs[1] < errs[0], errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [jnp.float64, jnp.float32])
+def test_fd_grad_cuda_route(rng, dtype):
+    """The CUDA wavefront tier's value and adjoint against finite
+    differences (needs the card: the kernel has no CPU mode)."""
+    X64 = make_paths(rng, 1, 4, 2, scale=0.5)
+    Y = jnp.asarray(make_paths(rng, 1, 5, 2, scale=0.5), dtype)
+    errs = _fd_convergence(X64, Y, dtype, (1, 2), solver="cuda")
+    assert errs[1] < 8e-2, errs
     assert errs[1] < errs[0], errs
 
 

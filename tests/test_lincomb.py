@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import sigkernel_tpu as sk
-from sigkernel_tpu.sigkernel import sig_gram_lincomb, sig_gram, sig_mmd
+import sigkernel_jax as sk
+from sigkernel_jax.sigkernel import sig_gram_lincomb, sig_gram, sig_mmd
 
 from conftest import make_paths
 
@@ -111,7 +111,7 @@ def test_lincomb_jits(data):
 
 
 def test_scoring_rules_chunked_match_direct(rng):
-    from sigkernel_tpu.sigkernel import (sig_scoring_rule,
+    from sigkernel_jax.sigkernel import (sig_scoring_rule,
                                          sig_expected_scoring_rule)
 
     X = jnp.asarray(make_paths(rng, 6, 6, 2, scale=0.6))

@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import sigkernel_tpu as sk
-from sigkernel_tpu.models import SigKernelSVC, MMDFlow, mmd_flow_step
+import sigkernel_jax as sk
+from sigkernel_jax.models import SigKernelSVC, MMDFlow, mmd_flow_step
 
 from conftest import make_paths
 
@@ -78,7 +78,7 @@ def test_structured_logging_events(tmp_path, monkeypatch):
     """log_event appends JSON lines to SIGKERNEL_LOG_FILE and MMDFlow.fit
     emits per-step events."""
     import json
-    from sigkernel_tpu.utils.logging import log_event
+    from sigkernel_jax.utils.logging import log_event
 
     log = tmp_path / "events.jsonl"
     monkeypatch.setenv("SIGKERNEL_LOG_FILE", str(log))
@@ -87,8 +87,8 @@ def test_structured_logging_events(tmp_path, monkeypatch):
 
     import numpy as np
     import jax.numpy as jnp
-    import sigkernel_tpu as sk
-    from sigkernel_tpu.models import MMDFlow
+    import sigkernel_jax as sk
+    from sigkernel_jax.models import MMDFlow
 
     rng = np.random.default_rng(0)
     X0 = jnp.asarray(rng.normal(size=(4, 6, 2)).cumsum(axis=1) * 0.2)

@@ -9,7 +9,7 @@ GPU hardware: the oracle *is* the reference's semantic spec of the solver.
 Skipped automatically when /root/reference is not mounted. The reference's
 ``_naive_solver=True`` branch of these oracles uses a different first-order
 variant than its own compiled backends (documented divergence, see
-sigkernel_tpu/naive.py), so parity is checked on the default higher-order
+sigkernel_jax/naive.py), so parity is checked on the default higher-order
 scheme, which is identical everywhere.
 """
 import os
@@ -72,7 +72,7 @@ def _paths(rng, b, l, d):
 def test_kernel_matches_reference_oracle(rng, reference, dyadic_order):
     ref, torch = reference
     import jax.numpy as jnp
-    import sigkernel_tpu as sk
+    import sigkernel_jax as sk
 
     X = _paths(rng, 4, 8, 2)
     Y = _paths(rng, 4, 12, 2)
@@ -91,7 +91,7 @@ def test_kernel_matches_reference_oracle(rng, reference, dyadic_order):
 def test_gram_matches_reference_oracle(rng, reference):
     ref, torch = reference
     import jax.numpy as jnp
-    import sigkernel_tpu as sk
+    import sigkernel_jax as sk
 
     X = _paths(rng, 4, 7, 3)
     Y = _paths(rng, 5, 9, 3)
@@ -108,7 +108,7 @@ def test_gram_matches_reference_oracle(rng, reference):
 def test_mmd_matches_reference_oracle(rng, reference):
     ref, torch = reference
     import jax.numpy as jnp
-    import sigkernel_tpu as sk
+    import sigkernel_jax as sk
 
     X = _paths(rng, 5, 8, 2)
     Y = _paths(rng, 6, 8, 2)
@@ -126,7 +126,7 @@ def test_mmd_matches_reference_oracle(rng, reference):
 def test_static_kernels_match_reference(rng, reference):
     ref, torch = reference
     import jax.numpy as jnp
-    import sigkernel_tpu as sk
+    import sigkernel_jax as sk
 
     X = _paths(rng, 3, 6, 2)
     Y = _paths(rng, 4, 5, 2)
@@ -144,7 +144,7 @@ def test_derivatives_solver_matches_reference_mps_backend(rng, reference):
     to both solvers, isolating the recurrence itself."""
     ref, torch = reference
     import jax.numpy as jnp
-    from sigkernel_tpu.ops import scan_solver
+    from sigkernel_jax.ops import scan_solver
 
     A, B, M, N = 2, 3, 7, 9
     inc = rng.normal(size=(A, B, M, N)) * 0.1

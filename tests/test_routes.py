@@ -1,264 +1,201 @@
 """Route-resolution matrix: one resolver, every route enumerated.
 
-Part A pins the (tier x gates x grad_solver) -> RouteSpec mapping of
-``ops.routes`` with monkeypatched gates, so fwd/bwd agreement and the
-route table are explicit and reviewable in one place.
-
-Part B executes every route reachable at small shapes (interpret mode on
-CPU) through the PUBLIC ``solve``/``solve_df`` entry points and
-cross-checks value AND gradient against the scan tier (f64 oracle).
+Part A pins ``ops.routes``: the platform predicate, the tier choice
+(``"cuda"`` / ``"scan"``) under a stubbed platform, and the estimator
+family choice. Part B runs the ``"cuda"`` tier's Python end to end on the
+CPU with the FFI call replaced by the scan tier, which checks the custom
+VJP's gradient rule and the layout of the adjoint launch's output against
+the scan tier's own backward.
 """
-import os
+import types
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from sigkernel_tpu.ops import scan_solver, solve as solve_mod
-from sigkernel_tpu.ops.routes import (IncRoute, DfRoute, resolve_inc_route,
-                                      resolve_df_route, resolve_family)
-from sigkernel_tpu.utils import dyadic_refine
-
-ON_TPU = bool(os.environ.get("SIGKERNEL_TEST_TPU"))
+import sigkernel_jax as sk
+from sigkernel_jax.ops import gpu_wavefront, routes, scan_solver
+from sigkernel_jax.ops import solve as solve_mod
+from sigkernel_jax.utils import dyadic_refine
 
 
-@pytest.fixture(autouse=True)
-def _interpret_mode():
-    if ON_TPU:
-        yield
-    else:
-        from jax.experimental.pallas import tpu as pltpu
-        with pltpu.force_tpu_interpret_mode():
-            yield
+def _probe(rows, dtype, cols=5):
+    return jax.ShapeDtypeStruct((2, rows, cols), dtype)
 
 
 # ---------------------------------------------------------------------------
 # Part A: the resolver mapping, enumerated
 # ---------------------------------------------------------------------------
 
-_P32 = jax.ShapeDtypeStruct((2, 5, 5), jnp.float32)
-_P64 = jax.ShapeDtypeStruct((2, 5, 5), jnp.float64)
+_F64_MAX = 232448 // 24 - 1           # three f64 diagonals of MM + 1 rows
+_F32_MAX = min(232448 // 12 - 1, 32 * gpu_wavefront.MAX_THREADS)
 
-_INC_MATRIX = [
-    # (tier, planes_gate, stack_gate, grad_solver, probe, expected route)
-    ("pallas", True, True, "auto", _P32, IncRoute("pallas", "planes", "planes")),
-    ("pallas", False, True, "auto", _P32, IncRoute("pallas", "full", "fused")),
-    ("pallas", False, False, "auto", _P32, IncRoute("pallas", None, "fused")),
-    ("pallas_df64", False, False, "auto", _P64,
-     IncRoute("pallas_df64", None, "grid")),
-    ("pallas_df64", False, False, "df64", _P64,
-     IncRoute("pallas_df64", None, "grid")),
-    ("pallas_df64", False, False, "f32", _P64,
-     IncRoute("pallas_df64", None, "fused")),
-    ("pallas_blocked", False, False, "f32", _P64,
-     IncRoute("pallas_blocked", None, "striped")),
-    ("pallas_blocked", False, False, "df64", _P64,
-     IncRoute("pallas_blocked", None, "striped_df")),
-    ("pallas_blocked", False, False, "auto", _P64,
-     IncRoute("pallas_blocked", None, "striped_df")),
-    ("pallas_blocked", False, False, "auto", _P32,
-     IncRoute("pallas_blocked", None, "striped")),
-    ("scan", False, False, "auto", _P64, IncRoute("scan", None, "grid")),
+_TIER_MATRIX = [
+    # (on a GPU, solver, dtype, base rows, dyadic order, expected tier)
+    (True, "auto", jnp.float64, 8, 1, "cuda"),
+    (True, "auto", jnp.float32, 8, 1, "cuda"),
+    (True, "auto", jnp.float64, _F64_MAX, 0, "cuda"),
+    (True, "auto", jnp.float64, _F64_MAX + 1, 0, "scan"),
+    (True, "auto", jnp.float64, _F64_MAX // 2 + 1, 1, "scan"),
+    (True, "auto", jnp.float32, _F32_MAX, 0, "cuda"),
+    (True, "auto", jnp.float32, _F32_MAX + 1, 0, "scan"),
+    (True, "auto", jnp.float16, 8, 1, "scan"),
+    (False, "auto", jnp.float64, 8, 1, "scan"),
+    (False, "auto", jnp.float32, 8, 1, "scan"),
+    (True, "scan", jnp.float64, 8, 1, "scan"),
+    (True, "cuda", jnp.float64, 8, 1, "cuda"),
+    (True, "cuda", jnp.float32, 8, 2, "cuda"),
 ]
 
 
-@pytest.mark.parametrize("tier,pg,sg,gs,probe,want", _INC_MATRIX)
-def test_inc_route_matrix(monkeypatch, tier, pg, sg, gs, probe, want):
-    monkeypatch.setattr(solve_mod, "_resolve", lambda *a: tier)
-    monkeypatch.setattr(solve_mod, "_f32_planes_gate", lambda *a: pg)
-    monkeypatch.setattr(solve_mod, "_f32_stack_gate", lambda *a: sg)
-    got = resolve_inc_route(probe, "auto", 1, gs)
-    assert got[:3] == want[:3]
+@pytest.mark.parametrize("gpu,solver,dtype,rows,d,want", _TIER_MATRIX)
+def test_tier_matrix(monkeypatch, gpu, solver, dtype, rows, d, want):
+    monkeypatch.setattr(routes, "on_gpu", lambda device=None: gpu)
+    assert routes.resolve_tier(solver, _probe(rows, dtype), d) == want
 
 
-def test_inc_route_blocked_auto_f64_honest(monkeypatch):
-    """f64 increments beyond VMEM get the f64-grade striped adjoint under
-    'auto' -- never a silent downgrade to f32 grade."""
-    monkeypatch.setattr(solve_mod, "_resolve", lambda *a: "pallas_blocked")
-    r = resolve_inc_route(_P64, "auto", 1, "auto")
-    assert r.bwd == "striped_df" and r.warn is None
+@pytest.mark.parametrize("gpu,solver,dtype,rows", [
+    (False, "cuda", jnp.float64, 8),             # no GPU
+    (True, "cuda", jnp.float64, _F64_MAX + 1),   # beyond shared memory
+    (True, "cuda", jnp.float16, 8),              # dtype the kernel lacks
+    (True, "pallas", jnp.float32, 8),            # removed tiers
+    (True, "fused", jnp.float32, 8),
+    (False, "bogus", jnp.float64, 8),
+])
+def test_tier_errors(monkeypatch, gpu, solver, dtype, rows):
+    monkeypatch.setattr(routes, "on_gpu", lambda device=None: gpu)
+    with pytest.raises(ValueError):
+        routes.resolve_tier(solver, _probe(rows, dtype), 0)
 
 
-_DF_MATRIX = [
-    # (planes, ckpt, stack, supported, blocked, expected)
-    (True, False, False, True, False, DfRoute("planes", "planes")),
-    (False, True, False, True, False, DfRoute("ckpt", "ckpt")),
-    (False, False, True, True, False, DfRoute("full", "fused")),
-    (False, False, False, True, False, DfRoute(None, "fused")),
-    (False, False, False, False, True, DfRoute(None, "striped")),
-    (False, False, False, False, False, DfRoute(None, "grid")),
-]
+def test_on_gpu_reads_the_platform():
+    assert routes.on_gpu(types.SimpleNamespace(platform="gpu"))
+    assert not routes.on_gpu(types.SimpleNamespace(platform="cpu"))
+    assert not routes.on_gpu()          # the test process runs on the CPU
 
 
-@pytest.mark.parametrize("pg,cg,sg,sup,blk,want", _DF_MATRIX)
-def test_df_route_matrix(monkeypatch, pg, cg, sg, sup, blk, want):
-    from sigkernel_tpu.ops import pallas_blocked
+def test_mesh_solver_follows_the_mesh_devices():
+    from sigkernel_jax.parallel.sharded import _mesh_solver
 
-    monkeypatch.setattr(solve_mod, "_df_planes_gate", lambda *a: pg)
-    monkeypatch.setattr(solve_mod, "_df_ckpt_gate", lambda *a: cg)
-    monkeypatch.setattr(solve_mod, "_df_stack_gate", lambda *a: sg)
-    monkeypatch.setattr(solve_mod, "_df_supported", lambda *a: sup)
-    monkeypatch.setattr(pallas_blocked, "supported", lambda *a: blk)
-    assert resolve_df_route(_P32, 1) == want
+    cpu_mesh = types.SimpleNamespace(
+        devices=np.array([types.SimpleNamespace(platform="cpu")]))
+    gpu_mesh = types.SimpleNamespace(
+        devices=np.array([types.SimpleNamespace(platform="gpu")]))
+    assert _mesh_solver(cpu_mesh, "auto") == "scan"
+    assert _mesh_solver(gpu_mesh, "auto") == "auto"
+    assert _mesh_solver(cpu_mesh, "cuda") == "cuda"
 
 
-def test_family_matrix(monkeypatch, rng):
-    import sigkernel_tpu as sk
-    import sigkernel_tpu.sigkernel as K
+@pytest.mark.parametrize("solver,grad_solver,want", [
+    ("auto", "auto", "inc"),
+    ("auto", "f32", "inc"),
+    ("scan", "df64", "inc"),
+    ("cuda", "auto", "inc"),
+    ("df", "f32", "df"),
+    ("df", "auto", "df_hybrid"),
+    ("df", "df64", "df_hybrid"),
+])
+def test_family_matrix(solver, grad_solver, want):
+    assert routes.resolve_family(solver, grad_solver) == want
 
-    kern = sk.RBFKernel(1.0)
+
+def test_df_family_needs_a_df_kernel(rng):
     x = jnp.asarray(rng.normal(size=(2, 6, 2)))
-    cases = [
-        # (fused_auto, df_route, gen_route, solver, grad_solver, want)
-        (True, False, False, "auto", "auto", "fused"),
-        (False, False, False, "fused", "auto", "fused"),
-        (False, False, False, "auto", "auto", "inc"),
-        (False, True, False, "auto", "auto", "df_hybrid"),
-        (False, True, False, "auto", "df64", "df_hybrid"),
-        (False, True, True, "auto", "f32", "gen"),
-        (False, True, False, "auto", "f32", "df"),
-    ]
-    for fa, dfr, gen, solver, gs, want in cases:
-        monkeypatch.setattr(K, "_fused_auto", lambda *a, v=fa: v)
-        monkeypatch.setattr(K, "_df_route", lambda *a, v=dfr: v)
-        monkeypatch.setattr(K, "_gen_route", lambda *a, v=gen, **kw: v)
-        got = resolve_family(kern, x, x, solver, gs, 1, gram=False)
-        assert got == want, (fa, dfr, gen, solver, gs, got, want)
-
-
-def test_hybrid_bwd_matrix(monkeypatch, rng):
-    """``resolve_hybrid_bwd``: the honest-default backward's route gates
-    (gen geometry x plane-adjoint geometry x per-chunk stack budget)."""
-    import sigkernel_tpu as sk
-    import sigkernel_tpu.sigkernel as K
-    from sigkernel_tpu.ops import pallas_adjoint
-    from sigkernel_tpu.ops.routes import resolve_hybrid_bwd
-
-    kern = sk.RBFKernel(1.0)
-    x = jnp.asarray(rng.normal(size=(2, 6, 2)))
-    cases = [
-        # (gen_route, planes_adj_ok, budget_ok, want)
-        (True, True, True, "gen_df"),
-        (False, True, True, "chain"),
-        (True, False, True, "chain"),
-        (True, True, False, "chain"),
-    ]
-    for gen, pok, bok, want in cases:
-        monkeypatch.setattr(K, "_gen_route", lambda *a, v=gen, **kw: v)
-        monkeypatch.setattr(pallas_adjoint, "planes_adj_ok",
-                            lambda *a, v=pok: v)
-        monkeypatch.setattr(solve_mod, "_full_stack_bytes",
-                            lambda *a, v=bok: 0 if v else 1 << 62)
-        got = resolve_hybrid_bwd(kern, x, x, 1, False)
-        assert got == want, (gen, pok, bok, got, want)
+    with pytest.raises(ValueError, match="LinearKernel and RBFKernel"):
+        sk.sig_kernel(sk.RBF_SQR_Kernel(1.0, 1.0), x, x, solver="df")
 
 
 # ---------------------------------------------------------------------------
-# Part B: every route executed end-to-end (value + grad vs scan tier)
+# Part B: the cuda tier's Python, with the FFI call replaced by the scan tier
 # ---------------------------------------------------------------------------
 
-def _oracle(inc64, dyadic_order, naive=False):
-    """f64 scan-tier value + ADJOINT gradient of sum(K).
+def _fake_kernel(monkeypatch, calls):
+    """Stub the platform as a GPU and the kernel entry points by the scan
+    tier, keeping their contracts (base increments in, refinement inside,
+    adjoint output ``(..., 2, MM+1, NN+1)``)."""
 
-    The gradient semantics of the whole library (and the reference) is the
-    PDE-level adjoint (second solve on reversed increments), NOT autodiff
-    through the discrete scheme -- the two differ by O(h^2) discretisation
-    error, so the oracle must be the scan-tier custom_vjp, not
-    ``jax.grad`` through ``scan_solver``. Must be called BEFORE any route
-    gates are monkeypatched.
-    """
-    def loss(i):
-        return solve_mod.solve(i, solver="scan", dyadic_order=dyadic_order,
-                               naive=naive).sum()
-    v, g = jax.value_and_grad(loss)(inc64)
-    return np.asarray(v), np.asarray(g)
+    def final(inc, naive=False, dyadic_order=0):
+        calls.append("final")
+        return scan_solver.solve_final(dyadic_refine(inc, dyadic_order),
+                                       naive=naive)
 
+    def grid(inc, naive=False, dyadic_order=0, adjoint=False):
+        calls.append("adjoint" if adjoint else "grid")
+        g = scan_solver.solve_grid(dyadic_refine(inc, dyadic_order),
+                                   naive=naive)
+        if not adjoint:
+            return g
+        rev = jnp.flip(scan_solver.solve_grid(
+            dyadic_refine(jnp.flip(inc, (-2, -1)), dyadic_order),
+            naive=naive), (-2, -1))
+        return jnp.stack([g, rev], axis=-3)
 
-def _force_inc(monkeypatch, tier, planes, stack):
-    monkeypatch.setattr(solve_mod, "_resolve", lambda *a: tier)
-    monkeypatch.setattr(solve_mod, "_f32_planes_gate", lambda *a: planes)
-    monkeypatch.setattr(solve_mod, "_f32_stack_gate", lambda *a: stack)
-
-
-@pytest.mark.parametrize("tier,planes,stack,dtype", [
-    ("pallas", True, False, jnp.float32),    # planes stack fwd + planes bwd
-    ("pallas", False, True, jnp.float32),    # full stack fwd + fused bwd
-    ("pallas", False, False, jnp.float32),   # plain fwd + fused bwd
-    ("scan", False, False, jnp.float64),     # scan fwd + grid bwd
-])
-def test_inc_routes_execute_and_match_scan(rng, monkeypatch, tier, planes,
-                                           stack, dtype):
-    dyadic = 1
-    inc64 = jnp.asarray(rng.normal(size=(2, 6, 5)) * 0.1)
-    v0, g0 = _oracle(inc64, dyadic)
-    _force_inc(monkeypatch, tier, planes, stack)
-    inc = inc64.astype(dtype)
-
-    def loss(i):
-        return solve_mod.solve(i, solver="auto", dyadic_order=dyadic).sum()
-
-    v, g = jax.value_and_grad(loss)(inc)
-    np.testing.assert_allclose(float(v), v0, rtol=5e-6)
-    scale = max(np.abs(g0).max(), 1e-30)
-    np.testing.assert_allclose(np.asarray(g, np.float64), g0,
-                               atol=5e-5 * scale, rtol=0)
+    monkeypatch.setattr(routes, "on_gpu", lambda device=None: True)
+    monkeypatch.setattr(gpu_wavefront, "solve_final", final)
+    monkeypatch.setattr(gpu_wavefront, "solve_grid", grid)
 
 
-@pytest.mark.parametrize("grad_solver,bwd", [("f32", "fused"),
-                                             ("auto", "grid"),
-                                             ("df64", "grid")])
-def test_inc_df64_tier_routes_execute(rng, monkeypatch, grad_solver, bwd):
-    """The pallas_df64 tier through solve(): f64-grade fwd; bwd per matrix."""
-    dyadic = 1
-    inc64 = jnp.asarray(rng.normal(size=(2, 6, 5)) * 0.1)
-    v0, g0 = _oracle(inc64, dyadic)
-    monkeypatch.setattr(solve_mod, "_resolve", lambda *a: "pallas_df64")
-    assert resolve_inc_route(inc64, "auto", dyadic, grad_solver).bwd == bwd
-
-    def loss(i):
-        return solve_mod.solve(i, solver="auto", dyadic_order=dyadic,
-                               grad_solver=grad_solver).sum()
-
-    v, g = jax.value_and_grad(loss)(inc64)
-    np.testing.assert_allclose(float(v), v0, rtol=1e-9)
-    scale = max(np.abs(g0).max(), 1e-30)
-    tol = 5e-5 if bwd == "fused" else 1e-9
-    np.testing.assert_allclose(np.asarray(g), g0, atol=tol * scale, rtol=0)
+def _scan_value_and_grad(inc, dyadic, naive):
+    return jax.value_and_grad(lambda i: solve_mod.solve(
+        i, naive=naive, solver="scan", dyadic_order=dyadic).sum())(inc)
 
 
-def _split_hi_lo(inc64):
-    hi = jnp.asarray(inc64, jnp.float32)
-    lo = jnp.asarray(np.asarray(inc64) - np.asarray(hi, np.float64),
-                     jnp.float32)
-    return hi, lo
+@pytest.mark.parametrize("dyadic,naive", [(0, False), (1, False), (2, True)])
+def test_cuda_route_gradient_rule(rng, monkeypatch, dyadic, naive):
+    inc = jnp.asarray(rng.normal(size=(3, 6, 5)) * 0.1)
+    v0, g0 = _scan_value_and_grad(inc, dyadic, naive)
+    calls = []
+    _fake_kernel(monkeypatch, calls)
+    v, g = jax.value_and_grad(lambda i: solve_mod.solve(
+        i, naive=naive, solver="auto", dyadic_order=dyadic).sum())(inc)
+    assert calls == ["final", "adjoint"]
+    np.testing.assert_allclose(float(v), float(v0), rtol=1e-14)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g0), rtol=1e-12,
+                               atol=1e-14)
 
 
-@pytest.mark.parametrize("fwd_stack,bwd,gates", [
-    ("planes", "planes", dict(planes=True, ckpt=False, stack=False, sup=True)),
-    ("full", "fused", dict(planes=False, ckpt=False, stack=True, sup=True)),
-    (None, "fused", dict(planes=False, ckpt=False, stack=False, sup=True)),
-    (None, "grid", dict(planes=False, ckpt=False, stack=False, sup=False)),
-])
-def test_df_routes_execute_and_match_scan(rng, monkeypatch, fwd_stack, bwd,
-                                          gates):
-    dyadic = 1
-    inc64 = jnp.asarray(rng.normal(size=(2, 6, 5)) * 0.1)
-    v0, g0 = _oracle(inc64, dyadic)
-    monkeypatch.setattr(solve_mod, "_df_planes_gate",
-                        lambda *a: gates["planes"])
-    monkeypatch.setattr(solve_mod, "_df_ckpt_gate", lambda *a: gates["ckpt"])
-    monkeypatch.setattr(solve_mod, "_df_stack_gate",
-                        lambda *a: gates["stack"])
-    monkeypatch.setattr(solve_mod, "_df_supported", lambda *a: gates["sup"])
-    hi0, lo0 = _split_hi_lo(inc64)
-    assert resolve_df_route(hi0, dyadic) == DfRoute(fwd_stack, bwd)
+def test_cuda_route_estimators_match_scan(rng, monkeypatch):
+    """sig_kernel / sig_gram / lincomb gradients through the stubbed kernel
+    path equal the scan tier's (asymmetric lengths 10 and 20)."""
+    X = jnp.asarray(rng.normal(size=(3, 10, 2)).cumsum(1) * 0.1)
+    Y = jnp.asarray(rng.normal(size=(3, 20, 2)).cumsum(1) * 0.1)
+    W = jnp.asarray(rng.normal(size=(3, 3)))
+    kern = sk.RBFKernel(0.5)
 
-    def loss(hi):
-        return solve_mod.solve_df((hi, lo0), dyadic_order=dyadic).sum()
+    def losses(solver):
+        def f(x):
+            return (sk.sig_kernel(kern, x, Y, 1, solver=solver).sum()
+                    + sk.sig_gram(kern, x, Y, 1, solver=solver).sum()
+                    + sk.sig_gram_lincomb(kern, x, Y, W, 1, solver=solver,
+                                          pair_chunk=4))
+        return jax.value_and_grad(f)(X)
 
-    v, g = jax.value_and_grad(loss)(hi0)
-    np.testing.assert_allclose(float(v), v0, rtol=1e-7)
-    scale = max(np.abs(g0).max(), 1e-30)
-    np.testing.assert_allclose(np.asarray(g, np.float64), g0,
-                               atol=5e-5 * scale, rtol=0)
+    v0, g0 = losses("scan")
+    calls = []
+    _fake_kernel(monkeypatch, calls)
+    v, g = losses("auto")
+    assert "adjoint" in calls
+    np.testing.assert_allclose(float(v), float(v0), rtol=1e-13)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g0), rtol=1e-11,
+                               atol=1e-14)
+
+
+def test_df_family_backward_on_cuda_tier(rng, monkeypatch):
+    """solver='df' with the f64-grade backward recomputes through the
+    'auto' tier, so on a GPU it reaches the kernel's adjoint."""
+    X = jnp.asarray(rng.normal(size=(2, 6, 2)).cumsum(1) * 0.2)
+    Y = jnp.asarray(rng.normal(size=(2, 7, 2)).cumsum(1) * 0.2)
+    kern = sk.RBFKernel(1.0)
+
+    def grad():
+        return jax.grad(lambda x: sk.sig_kernel(
+            kern, x, Y, 1, solver="df").sum())(X)
+
+    g0 = grad()
+    calls = []
+    _fake_kernel(monkeypatch, calls)
+    g = grad()
+    assert "adjoint" in calls
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g0), rtol=1e-12,
+                               atol=1e-15)

@@ -3,10 +3,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sigkernel_tpu.ops import scan_solver
-from sigkernel_tpu.naive import _solve_np
-from sigkernel_tpu.utils import increment_grid
-from sigkernel_tpu.kernels import RBFKernel, LinearKernel
+from sigkernel_jax.ops import scan_solver
+from sigkernel_jax.naive import _solve_np
+from sigkernel_jax.utils import increment_grid
+from sigkernel_jax.kernels import RBFKernel, LinearKernel
 
 from conftest import make_paths
 
@@ -95,8 +95,8 @@ def test_sig_loss_naive_matches_distance():
     """SigLoss_naive oracle == sig_distance on the same inputs."""
     import jax.numpy as jnp
     from conftest import make_paths
-    import sigkernel_tpu as sk
-    from sigkernel_tpu import naive
+    import sigkernel_jax as sk
+    from sigkernel_jax import naive
 
     rng = np.random.default_rng(7)
     X = make_paths(rng, 3, 8, 2)
@@ -112,8 +112,8 @@ def test_reference_name_shims():
     """Every public reference symbol resolves to a working counterpart."""
     import jax.numpy as jnp
     from conftest import make_paths
-    import sigkernel_tpu as sk
-    from sigkernel_tpu import naive, utils
+    import sigkernel_jax as sk
+    from sigkernel_jax import naive, utils
 
     rng = np.random.default_rng(3)
     X = make_paths(rng, 2, 7, 2)

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import sigkernel_tpu as sk
-from sigkernel_tpu.parallel import (make_mesh, sharded_sig_kernel,
+import sigkernel_jax as sk
+from sigkernel_jax.parallel import (make_mesh, sharded_sig_kernel,
                                     sharded_sig_gram, sharded_sig_mmd)
 
 from conftest import make_paths
@@ -67,7 +67,7 @@ def test_sharded_mmd_grad(rng, mesh):
 
 
 def test_sharded_gram_2d_matches_local(rng):
-    from sigkernel_tpu.parallel import make_mesh, sharded_sig_gram_2d
+    from sigkernel_jax.parallel import make_mesh, sharded_sig_gram_2d
     mesh2d = make_mesh(axis_names=("rows", "cols"), shape=(2, 4))
     X = jnp.asarray(make_paths(rng, 6, 7, 2))
     Y = jnp.asarray(make_paths(rng, 10, 8, 2))
@@ -78,12 +78,12 @@ def test_sharded_gram_2d_matches_local(rng):
 
 
 def test_striped_solve_matches_single_device(rng, mesh):
-    """ICI sequence parallelism: grid rows striped across the 8-device mesh,
+    """Sequence parallelism: grid rows striped across the 8-device mesh,
     bottom boundary rows halo-exchanged chip-to-chip (SURVEY S5's long-path
     mechanism). Must equal the single-device sweep bit-exactly -- the same
     stripe recurrences run in the same order on the same inputs."""
-    from sigkernel_tpu.parallel import striped_solve_final
-    from sigkernel_tpu.ops import scan_solver
+    from sigkernel_jax.parallel import striped_solve_final
+    from sigkernel_jax.ops import scan_solver
 
     inc = jnp.asarray(rng.normal(size=(4, 64, 24)) * 0.05)
     local = np.asarray(scan_solver.solve_final(inc))
@@ -96,11 +96,11 @@ def test_striped_solve_matches_single_device(rng, mesh):
 def test_striped_solve_dyadic_chunks(rng, mesh, chunks):
     """Per-chip lazy dyadic refinement + pair-chunk pipelining: each chip
     holds only its *base* stripe; refined rows exist one stripe at a time.
-    Beyond one chip's budget in aggregate == the single-chip blocked
-    decomposition semantics (ops/pallas_blocked.py docstring)."""
-    from sigkernel_tpu.parallel import striped_solve_final
-    from sigkernel_tpu.ops import scan_solver
-    from sigkernel_tpu.utils import dyadic_refine
+    The result equals the single-device sweep (scan_solver.solve_stripe
+    semantics)."""
+    from sigkernel_jax.parallel import striped_solve_final
+    from sigkernel_jax.ops import scan_solver
+    from sigkernel_jax.utils import dyadic_refine
 
     inc = jnp.asarray(rng.normal(size=(4, 16, 10)) * 0.1)
     local = np.asarray(scan_solver.solve_final(dyadic_refine(inc, 1)))
@@ -110,8 +110,8 @@ def test_striped_solve_dyadic_chunks(rng, mesh, chunks):
 
 
 def test_striped_solve_naive_scheme(rng, mesh):
-    from sigkernel_tpu.parallel import striped_solve_final
-    from sigkernel_tpu.ops import scan_solver
+    from sigkernel_jax.parallel import striped_solve_final
+    from sigkernel_jax.ops import scan_solver
 
     inc = jnp.asarray(rng.normal(size=(2, 32, 12)) * 0.1)
     local = np.asarray(scan_solver.solve_final(inc, naive=True))
@@ -124,9 +124,9 @@ def test_sharded_lincomb_matches_single_device(rng, mesh):
     """Row-sharded sig_gram_lincomb == the single-device scalar, and the
     sharded gradient (through shard_map + the per-chip eager chunk scans)
     == the single-device gradient."""
-    import sigkernel_tpu as sk
-    from sigkernel_tpu.parallel import sharded_sig_gram_lincomb
-    from sigkernel_tpu.sigkernel import sig_gram_lincomb
+    import sigkernel_jax as sk
+    from sigkernel_jax.parallel import sharded_sig_gram_lincomb
+    from sigkernel_jax.sigkernel import sig_gram_lincomb
 
     X = jnp.asarray(make_paths(rng, 11, 6, 2, scale=0.5))  # pads to 16
     Y = jnp.asarray(make_paths(rng, 5, 7, 2, scale=0.5))
@@ -152,9 +152,9 @@ def test_sharded_lincomb_jit_all_grads_match(rng, mesh):
     must psum replicated-operand cotangents across shards exactly once
     (no per-scan-step collective, no double count), and the sigma
     cotangent must come back with the primal's (invariant) vma."""
-    import sigkernel_tpu as sk
-    from sigkernel_tpu.parallel import sharded_sig_gram_lincomb
-    from sigkernel_tpu.sigkernel import sig_gram_lincomb
+    import sigkernel_jax as sk
+    from sigkernel_jax.parallel import sharded_sig_gram_lincomb
+    from sigkernel_jax.sigkernel import sig_gram_lincomb
 
     X = jnp.asarray(make_paths(rng, 8, 6, 2, scale=0.5))
     Y = jnp.asarray(make_paths(rng, 5, 7, 2, scale=0.5))

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sigkernel_tpu import (LinearKernel, RBFKernel, RBF_CEXP_Kernel,
+from sigkernel_jax import (LinearKernel, RBFKernel, RBF_CEXP_Kernel,
                            RBF_SQR_Kernel, Linear_ID_Kernel, RBF_ID_Kernel,
                            CEXP)
 

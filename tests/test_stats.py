@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import sigkernel_tpu as sk
+import sigkernel_jax as sk
 
 from conftest import make_paths
 
@@ -56,7 +56,7 @@ def test_stats_accept_sigkernel_wrapper(rng):
     """hypothesis_test/sig_chsic accept a whole SigKernel (unwrapping its
     static kernel + dyadic order) as well as the reference's static-kernel
     signature."""
-    import sigkernel_tpu as sk
+    import sigkernel_jax as sk
 
     X = jnp.asarray(rng.normal(size=(4, 6, 2)).cumsum(1) * 0.3)
     Y = jnp.asarray(rng.normal(size=(3, 6, 2)).cumsum(1) * 0.3)

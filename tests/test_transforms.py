@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from sigkernel_tpu import transforms as T
+from sigkernel_jax import transforms as T
 
 
 def test_addtime():

@@ -11,7 +11,7 @@ achievable way: the *same* synthetic dataset is pushed through
   compiled Cython backend adapted to the reference's *own* pure-torch
   ``sigkernel_Gram_mps`` solver (reference sigkernel/mps_backend.py:52-78;
   every number still comes from reference code), and
-- our ``SigKernelSVC`` (sigkernel_tpu/models/classifier.py),
+- our ``SigKernelSVC`` (sigkernel_jax/models/classifier.py),
 
 asserting Gram agreement to 1e-10 and *identical* predictions -- identical
 Grams through the identical sklearn estimator imply identical accuracies on
@@ -107,8 +107,8 @@ def _synthetic_classes(rng, n_per_class, length, dim):
 def test_uea_pipeline_matches_reference(rng, reference):
     ref, torch = reference
     import jax.numpy as jnp
-    import sigkernel_tpu as sk
-    from sigkernel_tpu.models.classifier import SigKernelSVC
+    import sigkernel_jax as sk
+    from sigkernel_jax.models.classifier import SigKernelSVC
     from sklearn.svm import SVC
     from sklearn.model_selection import GridSearchCV
 
